@@ -2,9 +2,9 @@
 """Multi-chip training-step demo on a virtual 8-device CPU mesh
 (`XLA_FLAGS=--xla_force_host_platform_device_count=8`): rays sharded
 data-parallel, tree + feature pool replicated, feature-grad all-reduce
-inserted by GSPMD. The same code drives a real TPU pod slice; for
-multi-HOST runs call `svox_t_tpu.parallel.initialize(...)` first (see
-parallel/distributed.py).
+inserted by GSPMD. The same code drives the GPUs of one host (drop the
+two CPU lines below); for multi-HOST runs call
+`svox_t_tpu.parallel.initialize(...)` first (see parallel/distributed.py).
 
     python examples/distributed_train_demo.py [n_steps]
 """
@@ -24,11 +24,13 @@ import jax.numpy as jnp
 import numpy as np
 
 import svox_t_tpu as st
+from svox_t_tpu.utils.compile_cache import enable_compile_cache
 from svox_t_tpu.parallel import (make_ray_mesh, make_train_step,
                                  replicate_spec, shard_rays)
 
 
 def main():
+    enable_compile_cache()
     n_steps = int(sys.argv[1]) if len(sys.argv) > 1 else 20
     rng = np.random.RandomState(0)
 

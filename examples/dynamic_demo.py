@@ -17,7 +17,6 @@ import os
 import sys
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.cache/jax_bench")
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
@@ -25,6 +24,7 @@ import jax.numpy as jnp
 import numpy as np
 
 import svox_t_tpu as st
+from svox_t_tpu.utils.compile_cache import enable_compile_cache
 from benchmarks.scenes import orbit_camera
 
 
@@ -39,6 +39,7 @@ def make_pose(angle):
 
 
 def main():
+    enable_compile_cache()
     n_frames = int(sys.argv[1]) if len(sys.argv) > 1 else 8
     rng = np.random.RandomState(0)
 

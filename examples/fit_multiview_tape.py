@@ -4,7 +4,7 @@ Artemis fitting regime (a fixed capture rig around a volume whose
 features are optimized; reference workflow: per-view renders through
 `VolumeRenderer.forward`, renderer.py:207).
 
-The TPU-native shape of that loop:
+The shape of that loop here:
 
   1. `record_persp_rig` records a single tape over ALL V cameras
      (the structure walk is per-(rig x structure), paid once),
@@ -12,9 +12,8 @@ The TPU-native shape of that loop:
   3. every SGD step is one dispatch: replay fwd (radiometry only)
      + the single-pass tape VJP + one bulk gradient flush.
 
-This is the fastest fitting path in the framework: fixed-ray fwd+bwd
-measured 16.2 Mrays/s vs 3.25 through the re-marching backward
-(docs/PERFORMANCE.md "Recorded sample tapes").
+No structure walk runs inside the fitting loop: every step replays
+recorded samples instead of re-marching the octree.
 
     python examples/fit_multiview_tape.py [n_steps]
 """
@@ -29,6 +28,7 @@ import jax.numpy as jnp
 import numpy as np
 
 import svox_t_tpu as st
+from svox_t_tpu.utils.compile_cache import enable_compile_cache
 from svox_t_tpu.ops import tape as tape_ops
 
 
@@ -47,6 +47,7 @@ def look_at(eye):
 
 
 def main(n_steps=60):
+    enable_compile_cache()
     rng = np.random.RandomState(0)
     t = st.N3Tree(N=2, data_dim=4, data_format="RGBA", depth_limit=4)
     t.refine(repeats=3)

@@ -9,13 +9,13 @@ import os
 import sys
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.cache/jax_bench")
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax.numpy as jnp
 import numpy as np
 
 import svox_t_tpu as st
+from svox_t_tpu.utils.compile_cache import enable_compile_cache
 from benchmarks.scenes import build_shell_tree, orbit_camera
 
 
@@ -29,6 +29,7 @@ def write_ppm(path, img):
 
 
 def main():
+    enable_compile_cache()
     out_dir = sys.argv[1] if len(sys.argv) > 1 else "/tmp/svox_t_tpu_demo"
     os.makedirs(out_dir, exist_ok=True)
 
@@ -58,8 +59,7 @@ def main():
     # Fixed-camera animated-feature serving through a RECORDED TAPE:
     # the first render_persp_tape call records the structure walk for
     # this camera (cached), then every animation frame replays only
-    # radiometry — the steady-state serving path (docs/PERFORMANCE.md
-    # "Recorded sample tapes").
+    # radiometry — the steady-state serving path.
     c2w = orbit_camera(0.0, 0.35)
     _ = r.render_persp_tape(feats, c2w, width=W, height=W, fx=W * 1.1)
     for i in range(3):

@@ -14,7 +14,6 @@ import os
 import sys
 import time
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.cache/jax_bench")
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import jax
@@ -23,6 +22,7 @@ import numpy as np
 import optax
 
 import svox_t_tpu as st
+from svox_t_tpu.utils.compile_cache import enable_compile_cache
 
 
 def make_pose(angle):
@@ -35,6 +35,7 @@ def make_pose(angle):
 
 
 def main():
+    enable_compile_cache()
     n_steps = int(sys.argv[1]) if len(sys.argv) > 1 else 20
     rng = np.random.RandomState(0)
     T = 4  # frames per step

@@ -4,7 +4,7 @@ canonical NeRF/Artemis training loop (reference workflow: sample random
 rays across the training cameras each step and call the renderer on the
 fresh batch, svox_t/renderer.py:207-308).
 
-The TPU-native shape of that loop (ops/tape_subset.py):
+The shape of that loop here (ops/tape_subset.py):
 
   1. `record_persp_rig` records ONE tape over all training cameras
      (the structure walk is per-(rig x structure), paid once);
@@ -17,8 +17,7 @@ The TPU-native shape of that loop (ops/tape_subset.py):
      in-dispatch update. Step n+1 sees step n's update.
 
 Gradients equal the march's on the identical rays (tests/
-test_tape_subset.py); per-step cost structure is documented in
-docs/PERFORMANCE.md "Minibatch training".
+test_tape_subset.py).
 
     python examples/train_minibatch.py [n_superbatches]
 """
@@ -33,6 +32,7 @@ import jax.numpy as jnp
 import numpy as np
 
 import svox_t_tpu as st
+from svox_t_tpu.utils.compile_cache import enable_compile_cache
 
 
 def build_scene(rng):
@@ -47,6 +47,7 @@ def build_scene(rng):
 
 
 def main():
+    enable_compile_cache()
     n_super = int(sys.argv[1]) if len(sys.argv) > 1 else 4
     rng = np.random.RandomState(0)
     tree, f_true = build_scene(rng)

@@ -1,14 +1,14 @@
-"""svox_t_tpu — TPU-native sparse voxel octree framework for dynamic
+"""svox_t_tpu — sparse voxel octree framework for dynamic
 differentiable volume rendering.
 
-A from-scratch JAX/XLA/Pallas rebuild with the full capabilities of the
+A from-scratch JAX/XLA rebuild with the full capabilities of the
 reference `svox_t` library (the renderer behind *Artemis: Articulated
 Neural Pets*, TOG 2022): an N^3-branching sparse voxel octree whose leaf
 contents index a per-frame feature pool, differentiable per-ray and
 perspective volume rendering with SH/SG/ASG appearance, opacity / depth /
 first-hit motion / LBS motion-feature passes, LBS vertex warping,
 real-time octree (re)pointing, and point-to-voxel splatting — scaled over
-TPU chips via ray-sharded `pjit` (see `svox_t_tpu.parallel`).
+GPUs via ray-sharded `pjit` (see `svox_t_tpu.parallel`).
 
 Public API parity: reference `svox_t/__init__.py:30-35`.
 """

@@ -3,7 +3,7 @@ with lazy on-first-use compilation and a NumPy fallback.
 
 Parity target: `quantize_median_cut` (svox_t/csrc/quantizer.cpp:130-157)
 — offline CPU tooling for PlenOctrees color compression; the natural
-native layer is host C++ (no TPU involvement).
+native layer is host C++ (no device involvement).
 """
 
 from __future__ import annotations

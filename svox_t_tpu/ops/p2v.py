@@ -1,11 +1,11 @@
 """Point-to-voxel (p2v) Gaussian density splatting — the real-time octree
 construction front end.
 
-TPU-native replacement for `p2v_kernel.cu` (K17/K18): instead of one CUDA
+Batched replacement for `p2v_kernel.cu` (K17/K18): instead of one CUDA
 thread per point looping over covered voxels with `atomicAdd`, each point
 statically enumerates a (W, W, W) voxel window (W derived from
 `conv_radius / voxel_size` at trace time) and all contributions land in a
-single deterministic scatter-add over the flat voxel grid. The op is
+single scatter-add over the flat voxel grid. The op is
 written in plain differentiable JAX: autodiff of the scatter is a gather,
 which reproduces the reference's hand-written backward formulas (Gaussian
 kernel: d w / d x = -dx * w / k^2, p2v_kernel.cu:224-226) exactly — no

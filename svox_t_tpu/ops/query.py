@@ -1,6 +1,6 @@
 """Point query / assignment / tree (re)pointing ops.
 
-TPU-native equivalents of the reference's `svox_t/csrc/svox_kernel.cu`:
+Batched equivalents of the reference's `svox_t/csrc/svox_kernel.cu`:
   * `query_vertical` (K1, svox_kernel.cu:66-81, 274-324): differentiable
     batched point query — descend, gather feature rows; custom_vjp
     scatter-adds output grads into the feature pool rows
@@ -10,7 +10,7 @@ TPU-native equivalents of the reference's `svox_t/csrc/svox_kernel.cu`:
     feature pool).
   * `construct_tree` (K4, svox_kernel.cu:110-121): real-time octree
     (re)pointing — write each point's row id into its leaf's index slot.
-    This is the per-frame "attach this frame's point cloud" op; on TPU it
+    This is the per-frame "attach this frame's point cloud" op; here it
     is a single batched descent + scatter, entirely on device.
   * `calc_corners` (K5, svox_kernel.cu:213-237): leaf lower corners by
     walking `parent_depth` up to the root. (The reference's CUDA path is
@@ -18,7 +18,7 @@ TPU-native equivalents of the reference's `svox_t/csrc/svox_kernel.cu`:
 
 The reference's hit-leaf mask compaction (svox_kernel.cu:239-269) used a
 device→host sync (`num_hit.item()`, svox_kernel.cu:312) to size its
-output. The TPU equivalent is `unique_leaf_nodes`: a fixed-capacity
+output. The equivalent here is `unique_leaf_nodes`: a fixed-capacity
 on-device sort/unique compaction returning a padded list + count —
 jittable, deterministic (sorted, unlike the reference's atomic-counter
 ordering), no host round-trip.
@@ -118,13 +118,19 @@ def assign(
 ) -> jax.Array:
     """Write `values` into the feature rows addressed by `points`
     (parity: assign_vertical, svox_kernel.cu:96-108). Returns the new
-    feature pool. Rows addressed by multiple points take one of the
-    writes (like the CUDA race, but deterministic here)."""
+    feature pool. A row addressed by several points takes the write of
+    the highest-indexed one (the CUDA kernel races; this is fixed on
+    every backend — see `construct_tree`)."""
     leaf = _descend_points(spec, points, world)
     M = features.shape[0]
     valid = leaf.data_idx < M
     scat = jnp.where(valid, leaf.data_idx, M)
-    return features.at[scat].set(values, mode="drop")
+    pid = jnp.arange(points.shape[0], dtype=jnp.int32)
+    win = jnp.full((M,), -1, jnp.int32).at[scat].max(pid, mode="drop")
+    values = jnp.broadcast_to(jnp.asarray(values, features.dtype),
+                              (points.shape[0],) + features.shape[1:])
+    return jnp.where((win >= 0)[:, None], values[jnp.maximum(win, 0)],
+                     features)
 
 
 def construct_tree(spec: TreeSpec, points: jax.Array) -> jax.Array:
@@ -133,10 +139,19 @@ def construct_tree(spec: TreeSpec, points: jax.Array) -> jax.Array:
 
     :param points: (Q, 3) world-space points; point i's leaf gets index i.
     :return: new flat data table (capacity * N^3,) int32.
+
+    A leaf holding several points gets the highest index among them —
+    what a sequential loop leaves behind. A plain scatter-set would
+    leave the choice to the backend: XLA:GPU writes duplicates in no
+    fixed order, so two programs re-pointing the same frame (the fused
+    loop and the dynamic tape) disagreed on the data row.
     """
     leaf = _descend_points(spec, points, True)
     tids = jnp.arange(points.shape[0], dtype=jnp.int32)
-    return spec.data_flat.at[leaf.node_flat].set(tids)
+    win = jnp.full(spec.data_flat.shape, -1, jnp.int32).at[
+        leaf.node_flat].max(tids)
+    return jnp.where(win >= 0, win, spec.data_flat).astype(
+        spec.data_flat.dtype)
 
 
 def points_leaf_aabb(spec: TreeSpec, points: jax.Array, world: bool = True):

@@ -1,4 +1,4 @@
-"""Differentiable volume rendering over the sparse voxel octree — TPU-native.
+"""Differentiable volume rendering over the sparse voxel octree.
 
 This module replaces the reference CUDA ray-marching kernels
 (`svox_t/csrc/rt_kernel.cu`: `trace_ray` 221-328, `trace_ray_backward`
@@ -8,16 +8,16 @@ This module replaces the reference CUDA ray-marching kernels
     rays together; each iteration performs one octree descent (fixed-depth
     loop of coalesced gathers, see ops/traversal.py), one feature gather,
     and masked front-to-back compositing. The loop exits as soon as every
-    ray has terminated — the TPU analogue of CUDA per-thread `while (t <
-    tmax)` with warp divergence.
+    ray has terminated — the batched counterpart of CUDA's per-thread
+    `while (t < tmax)`.
   * The backward pass is a hand-written `custom_vjp` that **re-marches
     twice** instead of storing per-sample state, exactly like the
-    reference (rt_kernel.cu:364 "PASS 1", 438 "PASS 2") — on TPU this is
-    also the right trade (VMEM/HBM are better spent on batch width than
-    sample tapes).
-  * Gradient scatters use deterministic XLA scatter-adds instead of the
-    reference's nondeterministic float `atomicAdd` — a deliberate
-    determinism upgrade.
+    reference (rt_kernel.cu:364 "PASS 1", 438 "PASS 2").
+  * Gradient scatters are XLA scatter-adds in place of the reference's
+    float `atomicAdd`. The CPU backend sums them in a fixed order;
+    XLA:GPU lowers them to atomics, so on the GPU two runs of one
+    gradient can differ in the last bits, as the reference's do
+    (docs/PARITY.md).
 
 Radiometry parity checklist (each replicated bit-carefully):
   - tree-space dir scaling + `delta_scale = 1/||scaling*dir||`
@@ -113,9 +113,8 @@ class PackedFeatures(NamedTuple):
 
     Pools beyond _MAX_FEATURE_ROWS are packed G rows per table row
     (G a power of two), gathered by `idx >> log2(G)` and group-selected
-    with a one-hot — same trick as the baked tables (the row cap keeps
-    the layout in the regime XLA VMEM-pins when the pool is small
-    enough; see docs/PERFORMANCE.md). G == 1 keeps the plain layout.
+    with a one-hot — same trick as the baked tables (see
+    ops/bake.MAX_TABLE_ROWS). G == 1 keeps the plain layout.
     Packing happens ONCE per call, outside march loops. `scale`/`zero`
     non-None marks an int8 table dequantized after each gather.
     """
@@ -930,11 +929,10 @@ def _volume_render_fwd_impl(
             )
 
             # Phase 2: radiometry for the whole round, stacked over K —
-            # a handful of (K, B) ops per ROUND (per-k unrolling costs
-            # ~1µs/op dispatch; the per-ray prefix is a K-length cumprod).
-            # Runs unconditionally: skipping all-empty rounds via
-            # lax.cond measured 1.6x SLOWER end-to-end (cond boundaries
-            # copy carried buffers and break fusion on this stack).
+            # a handful of (K, B) ops per ROUND (the per-ray prefix is a
+            # K-length cumprod). Runs unconditionally: a lax.cond that
+            # skipped all-empty rounds would copy carried buffers at its
+            # boundaries and break fusion.
             # The radiometry body lives in `_phase2_radiometry` (shared
             # verbatim with the tape replay, ops/tape.py).
             if want_weight_accum:
@@ -1016,8 +1014,7 @@ def _volume_render_fwd_impl(
     # repeated while any remain). EXACT: per-ray sample sequences are
     # unchanged — only the dispatch schedule moves work between loops.
     # Pays when chunk-straggler slot waste exceeds the one-off
-    # compaction gathers (~1.15-1.3x round reduction measured on the
-    # headline scenes — benchmarks/probe_twophase.py).
+    # compaction gathers.
     SR = opt.straggler_rounds
     B_total = origins.shape[0]
     cap_a = SR * K
@@ -1112,9 +1109,8 @@ def _grad_rows(opt, feat, basis_step, weight, g_color, n_color):
     sample colors' grad dot product total_color (B,).
 
     SH rows are the flat outer product (weight * s(1-s) * g_color) ⊗
-    basis, built with repeat/tile (2-D row scatters are per-ROW costed;
-    3-D buffers and in-loop reshapes are pathological — see
-    docs/PERFORMANCE.md)."""
+    basis, built with repeat/tile (2-D row buffers; reshaping big
+    arrays inside a loop materializes copies)."""
     if opt.format != FORMAT_RGBA:
         B = feat.shape[0]
         coeffs = feat[:, : n_color * opt.basis_dim].reshape(
@@ -1202,16 +1198,14 @@ def _scatter_add_compact(grad, sidx, rows, M):
     """Scatter-add `rows` into `grad` at row indices `sidx` (index == M
     means dropped dummy), compacting to the contributing rows first.
 
-    Measured cost model (v5e, this stack): a row scatter into a big
-    HBM-resident buffer costs ~40-70 ns per scattered ROW — dummies and
-    dropped rows INCLUDED, any width 1-128, add or set, sorted or not.
-    Compaction maps (scatters into the small position buffer) are cheap.
-    So: build the contributing-sample position map once, then dispatch
-    (lax.switch) to the smallest power-of-two tier that holds `count`
-    contributing rows — each round pays ~tier x 50 ns instead of the
-    full (K*B) x 50 ns. Contributions are spatially coherent (shell
-    crossings light up whole tiles), so counts are bimodal: near-zero or
-    large; the tier ladder serves both.
+    Built for a scatter whose cost tracks the number of rows it is
+    handed, dummies and dropped rows included: build the
+    contributing-sample position map once, then dispatch (lax.switch)
+    to the smallest power-of-two tier that holds `count` contributing
+    rows. Contributions are spatially coherent (shell crossings light up
+    whole tiles), so counts are bimodal: near-zero or large; the tier
+    ladder serves both. Whether the ladder pays on the GPU's atomic
+    scatter is not yet measured (ROADMAP 1.6).
     """
     T = sidx.shape[0]
     # Under shard_map the scatter output varies over every manual axis
@@ -1262,10 +1256,9 @@ def _tape_append(tape_idx, tape_rows, fill, sidx, rows, M):
     tape; returns (tape_idx, tape_rows, fill, spill_sidx).
 
     The tape trades the per-round latency-chained scatter call for a
-    cheap position-map + gather + contiguous dynamic_update_slice
-    (~55 us/round measured vs ~90 us for the tiered scatter), deferring
-    the real scatter to ONE bulk call at the end (~18 ns/row at 1M
-    rows). Append blocks are fixed at _TAPE_BLK rows; rows beyond the
+    cheap position-map + gather + contiguous dynamic_update_slice,
+    deferring the real scatter to ONE bulk call at the end. Append
+    blocks are fixed at _TAPE_BLK rows; rows beyond the
     block (dense rounds) and whole rounds arriving after the tape is
     full come back as `spill_sidx` for the caller's tiered scatter —
     correctness never depends on capacity. Stale tape slots always hold
@@ -1390,9 +1383,8 @@ def _volume_render_bwd_impl(
           distributes to the 8 corner cells weighted by the trilinear
           weights (chain rule through feat = sum_c w_c * f_c).
 
-          Row scatters cost ~45-65ns/ROW whether or not a row is a
-          dropped dummy, and most round slots cross empty space — so the
-          scatter first COMPACTS to the contributing rows (a cheap
+          Most round slots cross empty space, so the scatter first
+          COMPACTS to the contributing rows (a cheap
           scalar position scatter + gather) and only falls back to the
           full-width scatter when more than cap rows contribute."""
           cf = contrib.reshape(-1)

@@ -2,17 +2,15 @@
 
 The march processes rays in fixed chunks whose while-loop exits when the
 chunk's SLOWEST ray finishes, so mixed-cost chunks burn straggler
-rounds: on the 800^2 headline scenes the sum of chunk round-maxima runs
-1.6-1.9x above the per-ray ideal even with tile-coherent ordering
-(benchmarks/probe_twophase.py). Reordering rays by a precomputed
-per-ray cost makes chunks cost-HOMOGENEOUS and recovers nearly the
-whole gap — measured sustained: fast 23.2 -> 29.7 Mrays/s, opaque-fast
-38.1 -> 45.5, exact 15.9 -> 17.7 (benchmarks/probe_costorder.py).
+rounds: the sum of chunk round-maxima exceeds the per-ray ideal even
+with tile-coherent ordering. Reordering rays by a precomputed per-ray
+cost makes chunks cost-HOMOGENEOUS.
 
-Contrast with the reference: a CUDA SIMT renderer gets this for free
-(warps retire independently; the hardware scheduler backfills); the
-TPU-native equivalent is a PRECOMPUTED schedule, amortized across
-frames exactly like the bake. Correctness is unaffected by schedule
+Contrast with the reference: a CUDA SIMT renderer gets this from the
+hardware (warps retire independently; the scheduler backfills); the
+chunked march needs a PRECOMPUTED schedule, amortized across frames
+exactly like the bake. Whether it still pays on the GPU is not yet
+measured (ROADMAP 3.3). Correctness is unaffected by schedule
 quality: per-ray outputs are independent of chunk membership, so any
 permutation renders bit-identically (only the weight-accumulation
 scatter ORDER changes — ~1 ulp). A plan therefore never goes wrong,
@@ -26,8 +24,7 @@ is supplied, the cost march replicates the real transmittance chain
 (one extra gather per step) so retire points are predicted for opaque
 AND translucent content — a count-occupied-samples proxy misorders
 translucent scenes, where rays cross many occupied cells without
-stopping. One fused pre-march dispatch + one host argsort (~10 ms at
-640k rays).
+stopping. One fused pre-march dispatch + one host argsort.
 """
 
 from __future__ import annotations

@@ -10,12 +10,10 @@ structure gathers, no lane selects, no DDA in the hot loop; the tape is
 read back with contiguous dynamic slices and the feature gather is the
 only gather left per round.
 
-This is the TPU analogue of a display list. The reference re-walks the
-octree every frame because a CUDA SIMT walk is nearly free per thread;
-on this stack the walk is ~60% of the exact forward (docs/
-PERFORMANCE.md "Forward budget"), and the march's chunk-straggler waste
-adds another ~1.6x — both of which the tape removes (rays are re-chunked
-sorted by sample count, so chunks are length-homogeneous).
+A tape is a display list for the march. The reference re-walks the
+octree every frame, one CUDA thread per ray; here replay skips both the
+walk and the march's chunk-straggler waste (rays are re-chunked sorted
+by sample count, so chunks are length-homogeneous).
 
 Two tape layouts, chosen at record time:
 
@@ -47,8 +45,8 @@ edits; construct_tree rewrites only the index table,
 svox_kernel.cu:110-121), so the tape stores the flat TREE-CELL id per
 sample instead of a frozen feature row; replay resolves
 ``data_idx = index_table[cell]`` with one extra row-gather from the
-CURRENT frame's (packed) index table — a small loop-invariant operand
-XLA VMEM-pins — then proceeds unchanged. Occupancy changes per frame,
+CURRENT frame's (packed) index table — a small loop-invariant
+operand — then proceeds unchanged. Occupancy changes per frame,
 so compaction/ray-ordering must be keyed on a CONSERVATIVE occupancy:
 record against the UNION index table (occupancy only grows across a
 construct_tree sequence — stale pointers persist — so the union is the
@@ -90,7 +88,8 @@ class _NoSpec:
 _NOSPEC = _NoSpec()
 
 # Bulk-flush ys safety cap (see _replay_bwd_impl): beyond this the
-# backward auto-falls back to the tiered per-round scatter.
+# backward auto-falls back to the tiered per-round scatter. Not yet
+# re-sized for the GPU's memory (ROADMAP 1.7).
 _BULK_YS_MAX_BYTES = 1 << 30
 
 
@@ -209,9 +208,8 @@ class RayTape:
     # moved GROUPS of `group` consecutive input rays (spatially coherent
     # => count-homogeneous), so the output unsort is a gather of
     # n_rays/group contiguous G-row blocks (`ginv`: padded-layout block
-    # position of input block g) instead of n_rays single-row gathers —
-    # measured ~10x cheaper at G=32 on the headline image for ~equal
-    # padding (benchmarks/probe_tape_group.py). `inv_pos` stays valid
+    # position of input block g) instead of n_rays single-row gathers.
+    # `inv_pos` stays valid
     # either way (ray-level addressing for unsort=False consumers).
     ginv: Optional[jax.Array] = None
     # Per-sample march parameter t (the recorded t-chain value AT the
@@ -226,9 +224,8 @@ class RayTape:
     # by the perspective recorders: rays were recorded in block-major
     # order (group == bh*bw), and the unsort finishes with a pure
     # reshape/transpose from block-major back to raster order. Small
-    # square-ish blocks are far more count-coherent than scanline runs
-    # of the same size (4x4 measured 106 program rounds vs 142 for 1x32
-    # on the headline image; ray-level floor 93).
+    # square-ish blocks are more count-coherent than scanline runs of
+    # the same size (fewer program rounds).
     out_blocks: tuple = dataclasses.field(
         default=(), metadata=dict(static=True)
     )
@@ -367,8 +364,8 @@ def _record_chunks(spec, origins_c, dirs_c, opt: RenderOptions, S_rec: int,
         if compact and n_features:
             # compact: stable per-column sort brings occupied samples to
             # the front in order. ONE multi-operand lax.sort co-sorts
-            # idx/dt/cell with the occupancy key — measured 50x faster
-            # than argsort + take_along_axis gathers on this stack.
+            # idx/dt/cell with the occupancy key (no argsort +
+            # take_along_axis gathers).
             # Rows past a column's occupied count hold the (sorted-back)
             # empty samples, whose idx is >= n_features by definition —
             # exactly the replay's empty test; no sentinel masking
@@ -409,10 +406,10 @@ def _round_program(caps, K: int, s0_pad: int, r_mult: int = 8):
     (chunk, s0) pair; padded to a multiple of ``r_mult`` with no-op
     rounds (s0 = s0_pad, past every per-ray count — the padded rounds
     change nothing and rewrite an identical ys row). The default pad is
-    deliberately FINE (8): pad rounds run the full ~25 us round body
-    (their gathers still execute), and the coarse _size_bucket ladder
-    measured +1.2 ms on the headline replay when the true count crossed
-    a bucket edge; executable reuse across cameras is NOT the ladder's
+    deliberately FINE (8): pad rounds run the full round body (their
+    gathers still execute), and a coarse _size_bucket ladder would add
+    whole rounds when the true count crossed a bucket edge; executable
+    reuse across cameras is NOT the ladder's
     to buy here — the chunk count (n_chunks - n_zero) is a static shape
     that already varies per camera. Row-subset replays (tape_subset.py)
     pass a COARSER r_mult: there the chunk count is batch-size-stable
@@ -571,9 +568,8 @@ def record_tape(spec, n_features: int, origins, dirs, vdirs,
     )[n_zero:]
     # Replay round size (the program IS the round structure). For the
     # bit-exact uncompacted layout it must equal the march's round size;
-    # compact tapes carry the regroup license, and K=8 measured best
-    # (fewer loop iterations at ~20 us fixed cost each: 108 -> 127
-    # Mrays/s at C=2048 — benchmarks/probe_tape_kc.py N=32 sweep).
+    # compact tapes carry the regroup license and use K=8 (fewer loop
+    # iterations; not yet measured on the GPU, ROADMAP 1.7).
     if prog_round_size:
         K_prog = int(prog_round_size)
     else:
@@ -638,8 +634,7 @@ def pack_index_table(data_flat, width: int = 32):
     """Pack a flat int32 index table into the (rows, width) row-gather
     layout data-indirect replays resolve cells through. Call ONCE per
     frame, OUTSIDE replay loops — the packed table is then a
-    loop-invariant operand XLA can VMEM-pin (the ~1.7 vs ~11.5 ns/index
-    regime, CLAUDE.md cost model)."""
+    loop-invariant operand."""
     data_flat = jnp.asarray(data_flat, jnp.int32).reshape(-1)
     pad = (-data_flat.shape[0]) % width
     if pad:
@@ -777,8 +772,8 @@ def _replay_fwd_impl(tape: RayTape, features, opt: RenderOptions,
         # is a ys row; a chunk's LAST round's row is its output). The
         # round count is structure-bound and data-independent, so the
         # program is exact; padded no-op rounds only rewrite an
-        # identical row. Measured: while-loop fixed costs (cond + carry
-        # routing) were ~half the replay's device time. Early-stop
+        # identical row, and no while-loop cond or carry routing runs.
+        # Early-stop
         # modes (opt-in via opt.tape_stop_program) carry the stop mask
         # through the scan: post-stop rounds mask `valid` to all-false
         # and rewrite idempotent rows — outputs bitwise identical to
@@ -879,8 +874,8 @@ def _replay_fwd_impl(tape: RayTape, features, opt: RenderOptions,
         # base_basis is evaluated on the (C, 3) chunk slice — the SAME
         # shape/op sequence as the march's per-chunk evaluation, so the
         # basis values bit-match it (a batched all-chunks eval rounds a
-        # few lanes differently). Re-evaluated per round; ~2 us of
-        # elementwise work against the bit-exact replay contract.
+        # few lanes differently). Re-evaluated per round: a little
+        # elementwise work buys the bit-exact replay contract.
         base_basis = (
             eval_basis(opt.format, opt.basis_dim, vd, spec_v.extra_data)
             * window
@@ -974,10 +969,9 @@ def _replay_bwd_impl(tape: RayTape, features, opt: RenderOptions,
     n_color = get_out_data_dim(opt.format, opt.basis_dim, D) - 1
     # The replay backward honors bwd_round_size like the march backward
     # does (apply_bwd_sizing) — but with the OPPOSITE default sweet spot:
-    # with no structure tables to keep VMEM-pinned, a bigger backward
-    # round amortizes the per-round scatter fixed costs (measured on the
-    # headline scene: K=4 119 ms -> K=8 52.6 ms fwd+bwd sustained,
-    # benchmarks/probe_tape_kc.py). Round grouping is semantics-free
+    # with no structure walk in the round, a bigger backward round
+    # amortizes the per-round scatter fixed costs (not yet measured on
+    # the GPU, ROADMAP 1.7). Round grouping is semantics-free
     # (grads shift by regrouping ulps only). The round size is baked
     # into the tape's backward program (bwd_prog_K; default 8, set via
     # opt.bwd_round_size at RECORD time).
@@ -1153,7 +1147,7 @@ def _replay_bwd_impl(tape: RayTape, features, opt: RenderOptions,
     if opt.bwd_bulk_scatter and ys_bytes <= _BULK_YS_MAX_BYTES:
         # Flat-program bulk flush: grad rows leave the scan as ys
         # (written once, never carried — no scan-carry copies), then ONE
-        # bulk scatter-add lands them at the ~18 ns/row 1M-row rate.
+        # bulk scatter-add lands them.
         # Dummy rows carry index Mloc (out of bounds) and drop.
         def body(carry, xs_):
             (L, acc), sloc, rows = round_rows(carry[0], carry[1], xs_)
@@ -1208,7 +1202,8 @@ def _bwd_shared_sloc(tape: RayTape, Mloc: int, index_table=None):
 
 # Combined N-frame flush cap: the (rounds*K*C, N, D) ys stack plus its
 # transposed copy live simultaneously (~2x) — past this, fall back to
-# per-frame backwards rather than risk device OOM.
+# per-frame backwards rather than risk device OOM. Not yet re-sized for
+# the GPU's memory (ROADMAP 1.7).
 _WIDE_YS_MAX_BYTES = 7 << 30
 
 
@@ -1216,18 +1211,15 @@ def _replay_bwd_frames_impl(tape: RayTape, features_frames, opt,
                             grad_outs, outs, spec=None, index_table=None):
     """Gradients of N independent replays with ONE combined wide flush.
 
-    The bulk flush is row-count-bound, not byte-bound
-    (benchmarks/probe_flush_wide.py: width 29 vs N*29 near-constant at
-    1.57M rows), and its destinations are frame-invariant once the
+    The bulk flush was built as row-count-bound, not byte-bound, and
+    its destinations are frame-invariant once the
     sigma>0 routing moves from the index side to the row side
     (share_idx). So N frames' gradient rows land in ONE
     (T, N, D) -> (M, N, D) scatter-add and the single-frame flush cost
     amortizes to ~1/N per frame.
 
     ys emission stays an OUTER scan over frames so each frame's inner
-    round scan keeps its own (M, D) table as a pinnable loop invariant
-    (a fused (N*M, D) table would fall off the ~1.7 ns/row VMEM gather
-    regime — CLAUDE.md cost model).
+    round scan keeps its own (M, D) table as a loop invariant.
 
     Falls back to a per-frame scan of the single-frame backward
     (identical gradients, N flushes) for thresholded modes, sharded
@@ -1265,10 +1257,7 @@ def _replay_bwd_frames_impl(tape: RayTape, features_frames, opt,
     _, rows_n = jax.lax.scan(emit, 0, (features_frames, grad_outs, outs))
     # (N, rounds, K*C, D) -> FLAT (T, N*D): one bandwidth-rate transpose
     # so the flush reads each destination's N frame-blocks contiguously.
-    # The layout must stay flat 2-D: a shaped (T, N, D) / (M, N, D)
-    # scatter pads the minor dim D=29 -> 128 under T(8,128) (4.4x
-    # memory, OOMs at N=16 — probe_flush_wide.py); flat N*D pads
-    # 464 -> 512 only.
+    # The layout stays flat 2-D (T, N*D).
     T_rows = R * K * C
     rows_t = rows_n.reshape(N, T_rows, D).transpose(1, 0, 2).reshape(
         T_rows, N * D

@@ -14,11 +14,9 @@ This module makes tapes serve row subsets:
   * :class:`TapeRowSource` — a one-time RAY-MAJOR re-layout of a recorded
     tape into ONE packed int32 matrix (idx | dt bits | [t bits] | vdir
     bits | dscale bits | count per row), so pulling an arbitrary ray set
-    is a SINGLE row gather. Packing matters twice on this hardware: the
-    source is hundreds of MB (never VMEM-pinnable — every subset gather
-    runs at the slow HBM row-gather rate, ~5 GB/s effective measured,
-    benchmarks/probe_minibatch2.py), and per-row fixed costs dominate
-    (6 separate gathers measured 10.3 ms/step vs 7.0 packed at B=64k).
+    is a SINGLE row gather instead of one per field (the source is
+    hundreds of MB, so every subset gather is a random read from
+    device memory).
   * :func:`subset_tape` — build a standalone :class:`RayTape` for a host
     array of ray ids: host-side radix sort by sample count (the parent's
     ordering invariant), device row gather + re-chunk, fresh flat round
@@ -31,7 +29,7 @@ This module makes tapes serve row subsets:
     ONE dispatch; per step the subset gather runs in-graph from the
     packed source, so the host ships only the (N, Bp) row-position
     array. The gather touches ONLY the non-zero-occupancy suffix of each
-    batch (~12% of rays on the headline scene — the zero prefix replays
+    batch (a minority of rays on the shell scenes — the zero prefix replays
     to the background constant without reading any tape data). All N
     steps share one conservative round program (the union of the
     batches' per-chunk caps — extra rounds are provable no-ops), so
@@ -50,13 +48,11 @@ documented in CLAUDE.md; RGBA is shape-free and exactly bitwise).
 Gradients flow through the standard tape VJP; a subset gradient equals
 the full-batch gradient of a loss masked to R (tested).
 
-Measured cost structure (v5e, 4x800^2 rig source, B=64k, C=512 —
-docs/PERFORMANCE.md "Minibatch training"): the step floor is the
-non-pinnable source gather + the bwd round fixed costs + the gradient
-flush at ~18 ns per ALLOCATED row — all three are per-step serial
+Cost structure: a step is the source gather + the backward rounds +
+the gradient flush over the ALLOCATED rows — all three per-step serial
 (the SGD chain's flush feeds the next step's forward, so flushes can
 never batch across steps the way `replay_render_frames` batches
-independent per-frame gradients).
+independent per-frame gradients). Not yet measured on the GPU.
 """
 
 from __future__ import annotations
@@ -137,9 +133,8 @@ class TapeRowSource:
         self.dirs_rm = tape.dirs.reshape(n_rows, 3)
 
         # Host copies for ordering (fetched once; ~n_rays ints). The
-        # per-batch prep cost is host-gather-bound on this 1-core box
-        # (~5 ms/64k-batch), so everything it touches is int32 and the
-        # ray-id -> count map is precomposed.
+        # per-batch prep cost is host-gather-bound, so everything it
+        # touches is int32 and the ray-id -> count map is precomposed.
         self.counts_host = np.asarray(
             jax.device_get(tape.counts)
         ).reshape(n_rows).astype(np.int32)
@@ -190,8 +185,8 @@ class TapeRowSource:
         occ = self._occ_flags(pos, counts)
         if self.compact:
             # occ == (counts > 0), so ONE stable small-int argsort
-            # (radix) gives zero-occupancy-first count order — measured
-            # 4x the (counts, occ) lexsort on the 1-core host.
+            # (radix) gives zero-occupancy-first count order, cheaper
+            # than a (counts, occ) lexsort.
             key = counts + (counts > 0)
             key = key.astype(np.uint8 if self.S < 255 else np.uint16)
             order = np.argsort(key, kind="stable")
@@ -474,8 +469,8 @@ def train_minibatches(source, ids_batches, targets, features,
     Zero-occupancy rays render the exact background constant regardless
     of features — their loss terms carry ZERO gradient — so excluding
     them changes no update while keeping the per-step target gather and
-    the host->device index traffic proportional to the ~12% of rays
-    that do work (measured 15.6 -> see probe_minibatch.py). Add the
+    the host->device index traffic proportional to the rays that do
+    work. Add the
     constant yourself if you need the full L2 value.
 
     :param ids_batches: (N, B) host int array of ray ids per step.

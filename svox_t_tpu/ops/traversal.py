@@ -1,9 +1,9 @@
-"""Batched, vectorized octree traversal — the TPU replacement for the
+"""Batched, vectorized octree traversal — the replacement for the
 reference's per-thread pointer chase.
 
 The reference descends the tree per CUDA thread with a data-dependent
 `while` over relative child offsets (`query_single_from_root`,
-svox_t/csrc/include/common.cuh:62-100). On TPU that irregular walk becomes
+svox_t/csrc/include/common.cuh:62-100). Here that irregular walk becomes
 a **fixed-trip-count loop of batched gathers**: every level multiplies all
 query coordinates by N, computes flat cell indices, and gathers the child
 offset table once for the whole batch. Finished rays are carried through

@@ -1,8 +1,8 @@
 """Linear-blend-skinning vertex warping — pure JAX, autodiff gradients.
 
-TPU-native replacement for the reference CUDA LBS kernels
+Batched replacement for the reference CUDA LBS kernels
 (`warp_vertices_kernel` svox_kernel.cu:123-154 and its hand-written
-backward 156-211). The blend is a batched einsum (MXU-friendly); JAX
+backward 156-211). The blend is a batched einsum; JAX
 autodiff reproduces the reference's analytic gradients exactly (the
 backward kernel computes M^T g for coordinates and weighted outer
 products for matrices/weights — which *is* the autodiff of this einsum),

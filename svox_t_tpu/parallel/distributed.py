@@ -1,15 +1,14 @@
-"""Multi-host (DCN) scaffolding.
+"""Multi-host scaffolding.
 
 The single-host GSPMD path in `parallel.render` is topology-agnostic:
-the same `Mesh` + `NamedSharding` code drives a v5e pod slice once every
-host has called `jax.distributed.initialize` (SURVEY.md §5: "DCN only
-matters for multi-host meshes and is handled by the same
-jax.distributed / GSPMD stack"). This module is that entry point plus
-the host-local <-> global array plumbing a multi-process driver needs.
+the same `Mesh` + `NamedSharding` code spans the GPUs of several hosts
+once every host has called `jax.distributed.initialize`. This module is
+that entry point plus the host-local <-> global array plumbing a
+multi-process driver needs.
 
-On TPU pods the arguments are auto-detected from the environment and
-`initialize()` takes no arguments; on CPU/GPU clusters pass coordinator
-address / process count / process id explicitly. Tested by
+Pass the coordinator address (``host:port``), the process count and
+this process's id explicitly; a GPU cluster without a scheduler that
+JAX recognizes has nothing to infer them from. Tested by
 tests/test_distributed.py with 2 CPU processes of 4 virtual devices
 each (the standard JAX multi-process simulation).
 """
@@ -33,9 +32,10 @@ def initialize(
 ):
     """Join (or create) a multi-host JAX runtime.
 
-    Call once per process, before any other JAX API touches the backend.
-    On TPU pods all arguments are inferred from the environment; on
-    CPU/GPU clusters pass them explicitly. After this returns,
+    Call once per process, before any other JAX API touches the backend,
+    with all three of coordinator_address, num_processes and process_id
+    (JAX infers them only under cluster schedulers it recognizes). After
+    this returns,
     `jax.devices()` lists the GLOBAL device set and `global_ray_mesh()`
     spans it.
     """
@@ -56,7 +56,7 @@ def global_ray_mesh(axis_name: str = "rays") -> Mesh:
 
     Identical to `make_ray_mesh` on one host; after `initialize()` it
     spans every process's devices, and GSPMD routes the feature-gradient
-    psum over ICI within hosts and DCN across them."""
+    psum over NVLink within a host and the network across hosts."""
     return Mesh(np.asarray(jax.devices()), (axis_name,))
 
 

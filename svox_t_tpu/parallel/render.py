@@ -1,17 +1,17 @@
-"""Multi-chip scaling over a device mesh: ray DP and feature-pool MP.
+"""Multi-GPU scaling over a device mesh: ray DP and feature-pool MP.
 
 The reference has no distributed machinery at all (SURVEY.md §2.3) — its
 only parallelism is single-GPU SIMT. Two mesh axes cover the workload:
 
 * **Ray data parallelism** (`make_ray_mesh` / `render_sharded` /
   `make_train_step`): tree structure and the feature pool are replicated;
-  rays/pixels are sharded across chips; the only communication is the
+  rays/pixels are sharded across devices; the only communication is the
   feature-gradient all-reduce, which GSPMD inserts automatically as a
-  single `psum` over ICI when the sharded backward scatter-adds into the
+  single `psum` when the sharded backward scatter-adds into the
   replicated pool.
 * **Feature-pool model parallelism** (`shard_pool` /
   `render_pool_sharded` / `make_pool_train_step`): for scenes whose pool
-  + optimizer state outgrow one chip's HBM, the pool is ROW-sharded over
+  + optimizer state outgrow one device's memory, the pool is ROW-sharded over
   a mesh axis; each round's gather resolves locally and one `psum` over
   the pool axis assembles true rows before radiometry (every row has
   exactly one owner, so the reduction is exact). Gradients stay local to
@@ -52,8 +52,9 @@ def make_ray_mesh(devices=None, axis_name: str = "rays") -> Mesh:
 
 
 def replicate_spec(mesh: Mesh, tree_or_spec) -> TreeSpec:
-    """Place all tree arrays fully replicated on the mesh."""
-    spec = tree_or_spec if isinstance(tree_or_spec, TreeSpec) else tree_or_spec._spec()
+    """Place all tree arrays fully replicated on the mesh. Takes an
+    N3Tree (its TreeSpec) or a spec pytree (TreeSpec or BakedTree)."""
+    spec = tree_or_spec._spec() if hasattr(tree_or_spec, "_spec") else tree_or_spec
     repl = NamedSharding(mesh, P())
     return jax.tree_util.tree_map(lambda x: jax.device_put(x, repl), spec)
 
@@ -112,8 +113,8 @@ def make_train_step(
     pool, computes a loss against sharded targets, backprops through the
     hand-written render VJP, and applies an optimizer update. The feature
     gradient is produced by scatter-adds from every shard into the
-    replicated (M, D) buffer — GSPMD turns that into per-chip partial
-    gradients + one `psum` over ICI (the entire communication footprint
+    replicated (M, D) buffer — GSPMD turns that into per-device partial
+    gradients + one `psum` (the entire communication footprint
     of this workload).
 
     :param optimizer: an optax GradientTransformation (default: sgd(1e-2))
@@ -167,7 +168,7 @@ def make_train_step(
 # (rays-within-chunk) axis gives tape replay the same data parallelism
 # as render_sharded — each device replays its C/n rows of every chunk
 # against the replicated feature pool, and the tape-VJP's gradient
-# scatter-adds into the replicated pool become per-chip partials + one
+# scatter-adds into the replicated pool become per-device partials + one
 # GSPMD psum, exactly like the march path. Chunk counts are
 # length-homogeneous by construction, so shards stay load-balanced.
 
@@ -227,8 +228,7 @@ def make_tape_train_step(
     axis_name: str = "rays",
 ):
     """Distributed fixed-ray training step over a recorded tape (the
-    make_train_step counterpart; 3.7x the march step on one chip —
-    docs/PERFORMANCE.md "Recorded sample tapes"). Targets are given in
+    make_train_step counterpart). Targets are given in
     TAPE order ((n_chunks*C, out_dim) — map with tape.inv_pos) so the
     hot loop needs no unsort gather.
 
@@ -272,8 +272,8 @@ def make_tape_train_step(
 # Model-parallel feature pool (pool sharding)
 # ---------------------------------------------------------------------------
 #
-# Ray DP replicates the feature pool on every chip; scenes whose pool
-# (or bf16/int8 pool + optimizer state) outgrows one chip's HBM need the
+# Ray DP replicates the feature pool on every device; scenes whose pool
+# (or bf16/int8 pool + optimizer state) outgrows one device's memory need the
 # POOL itself sharded. The march's structure tables stay replicated
 # (they are the small part) and the pool is row-sharded over a mesh
 # axis: every round's feature gather resolves locally (non-owned rows
@@ -283,7 +283,7 @@ def make_tape_train_step(
 # backward needs NO extra communication: every device scatters and keeps
 # the gradient rows of its own shard (see RenderOptions.pool_axis and
 # ops/render._pool_view). Per-round cost is one (K*B, D) all-reduce over
-# ICI; combine with a ray axis on a 2-D mesh for DP x MP.
+# the pool axis; combine with a ray axis on a 2-D mesh for DP x MP.
 
 
 def shard_pool(mesh: Mesh, features, pool_axis: str = "pool"):
@@ -404,7 +404,7 @@ def make_pool_train_step(
     """Distributed training step on a 2-D (ray DP x pool MP) mesh.
 
     The pool AND its optimizer state live sharded over `pool_axis`
-    (1/n-th of the memory per chip); rays/targets shard over `ray_axis`.
+    (1/n-th of the memory per device); rays/targets shard over `ray_axis`.
     Communication per step: the per-round feature-row psum over the pool
     axis (forward + backward re-march) and one ray-axis psum of the pool
     cotangent. The latter is performed MANUALLY inside the custom-VJP

@@ -2,7 +2,7 @@
 
 Capability parity with the reference `svox_t/helpers.py:378-420`
 (`DataFormat` string parser "RGBA"/"SH{n}"/"SG{n}"/"ASG{n}" and
-`LocalIndex`), re-implemented for the TPU-native framework.
+`LocalIndex`), re-implemented for this framework.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Immutable pytree specs marshaled into the TPU render/query ops.
+"""Immutable pytree specs marshaled into the jitted render/query ops.
 
 These play the role of the reference's pybind11 spec structs
 (`svox_t/csrc/include/data_spec.hpp:52-145`: ``TreeSpec``, ``RaysSpec``,
@@ -7,7 +7,7 @@ handed to CUDA launchers, they are JAX pytrees (array leaves traced under
 `jit`) with hashable static metadata, so one compiled executable is reused
 across frames as long as shapes/format stay fixed.
 
-Design notes (TPU-first):
+Design notes:
   * ``child``/``data`` are stored **flattened** to 1-D ``(capacity * N^3,)``
     so octree descent is a pure batched gather with precomputed flat
     indices — no 4-D indexing in the hot loop.
@@ -61,26 +61,25 @@ class RenderOptions:
     max_comp: int = -1
     sigma_thresh: float = 0.0
     stop_thresh: float = 0.0
-    # TPU-specific: static bound on march iterations (the reference's
+    # Static bound on march iterations (the reference's
     # while(t < tmax) has a data-dependent trip count; XLA wants a bound).
     # delta_t >= step_size so the march is guaranteed to terminate in
     # ~sqrt(3)/step_size steps; leaf-adaptive stepping makes the practical
     # count far smaller. 1024 covers depth<=9 trees comfortably.
     max_steps: int = 1024
-    # TPU-specific: rays are marched in chunks of this size, each chunk's
-    # loop exiting as soon as its own rays are done. The batch-synchronous
-    # alternative pays the slowest ray's step count for every ray (the
-    # measured waste is ~10x on image renders where most rays miss).
-    # <= 0 disables chunking.
+    # Rays are marched in chunks of this size, each chunk's loop
+    # exiting as soon as its own rays are done. The batch-synchronous
+    # alternative pays the slowest ray's step count for every ray.
+    # <= 0 disables chunking. The default is not yet measured on the
+    # GPU (ROADMAP 1.7).
     chunk_size: int = 1024
-    # TPU-specific: samples marched per while-loop iteration ("round").
+    # Samples marched per while-loop iteration ("round").
     # Phase 1 of a round performs `round_size` dependent structure
     # lookups (the only truly sequential work); phase 2 computes all
     # radiometry for the round vectorized. Larger rounds amortize loop
     # plumbing (cond reduction, carry copies) but waste up to
-    # round_size-1 samples on rays that finish mid-round. K=4 measured
-    # best on the 800^2 bench scene (v5e): larger rounds lose more to
-    # mid-round waste than they save in plumbing.
+    # round_size-1 samples on rays that finish mid-round. The default
+    # is not yet measured on the GPU (ROADMAP 1.7).
     round_size: int = 4
     # 0 = nearest-leaf-constant sampling (reference semantics);
     # 1 = per-sample trilinear feature interpolation over the 8
@@ -120,8 +119,7 @@ class RenderOptions:
     # scatter (each round pays a latency-chained scatter call). > 0 =
     # per-round COMPACT-APPEND of contributing gradient rows into a
     # global (grad_tape_rows, D) tape carried across chunks, with ONE
-    # bulk scatter at the end (measured ~18 ns/row at 1M rows vs
-    # ~80-150 ns/row for per-round calls — docs/PERFORMANCE.md).
+    # bulk scatter at the end.
     # Overflowing rounds fall back to the tiered scatter, so any
     # capacity is CORRECT; size it ~= expected contributing samples.
     # Exact single-pass nearest-mode backward only (interp/thresholded
@@ -131,23 +129,19 @@ class RenderOptions:
     # emit each round's gradient rows as scan OUTPUTS (ys — written
     # once, never carried: the flat-program property that the round-2
     # global tape lacked) and flush them with ONE bulk scatter-add
-    # after the scan (~18 ns/allocated row at 1M+ rows vs ~42-79
-    # ns/row for per-round calls). 0 = per-round tiered compact
+    # after the scan. 0 = per-round tiered compact
     # scatter (the march backward's ladder) — opt out if the ys buffer
     # (alloc_rows x (D+1) f32, ~180 MB on the headline scene) is too
     # large. Tape rows are length-homogeneous (padding 1.07-1.12x
     # live), so the allocation arithmetic that killed the per-chunk
-    # march tape (worst-chunk caps) does not apply here. Measured
-    # (benchmarks/probe_tape_bulk.py, v5e): fixed-ray fwd+bwd 12.7 ->
-    # 16.2 Mrays/s (N=4/dispatch), 18.2 at N=16. Pure performance
-    # knob: grads differ only by float summation order (parity-tested).
+    # march tape (worst-chunk caps) does not apply here. Pure
+    # performance knob: grads differ only by float summation order
+    # (parity-tested).
     bwd_bulk_scatter: int = 1
     # Thresholded-mode TAPE replay shape (ops/tape.py only). 0 (default)
     # = the flat single-while replay, which RETIRES a chunk as soon as
-    # every ray in it stopped — on the benchmark scenes the skipped
-    # rounds beat the program's cheaper per-round body (probe at 800^2
-    # x 32 frames, C=2048 block tapes: fast shell 5.2 vs 5.8 ms/frame,
-    # opaque 2.3 vs 5.8 — probe_stopprog.py). 1 = run early-stop
+    # every ray in it stopped, trading the program's cheaper per-round
+    # body for skipped rounds. 1 = run early-stop
     # replays through the SAME flat round program as exact mode,
     # carrying the stop mask through the scan (post-stop rounds are
     # exact no-ops rewriting idempotent ys rows): pays every
@@ -157,11 +151,9 @@ class RenderOptions:
     # (parity-tested). Pure performance knob.
     tape_stop_program: int = 0
     # Backward-only overrides of round_size / chunk_size (0 = inherit).
-    # The backward march carries large per-round gradient-row buffers
-    # that evict the VMEM-pinned structure tables anyway, and its
-    # per-round fixed costs (compaction map + scatter dispatch) dominate
-    # — so a LARGER backward round/chunk can amortize them where the
-    # forward's K=8 VMEM cliff forbids it. Semantics are round-size
+    # The backward march's per-round fixed costs (compaction map +
+    # scatter dispatch) can favour a LARGER backward round/chunk than
+    # the forward's. Semantics are round-size
     # invariant (parity-tested); these are pure performance knobs.
     bwd_round_size: int = 0
     bwd_chunk_size: int = 0
@@ -174,8 +166,8 @@ class RenderOptions:
     # and it is legal on the parity path. (Weight accumulation stays
     # deterministic but its scatter-add ORDER across rays changes, so
     # waccum matches single-phase to ~1 ulp, not bitwise.) A pure
-    # performance knob sized by the chunk-straggler round waste
-    # (benchmarks/probe_twophase.py). 0 = single-phase march.
+    # performance knob sized by the chunk-straggler round waste.
+    # 0 = single-phase march.
     straggler_rounds: int = 0
     # Model-parallel feature pool (multi-chip): when `pool_axis` names a
     # mesh axis (render called inside shard_map over that axis), the

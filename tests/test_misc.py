@@ -2,6 +2,7 @@
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 import svox_t_tpu as st
 from svox_t_tpu.native import quantize_median_cut
@@ -97,23 +98,74 @@ def test_renderoptions_hashable():
     assert hash(o1) == hash(o2) and o1 == o2
 
 
-def test_profiling_trace_capture():
-    """device_trace captures and aggregates device-side op events (on
-    CPU the device name differs, so just exercise capture + parse)."""
+def _write_trace(root, processes, events):
+    """A minimal profiler trace: {pid: name}, [(pid, tid, name, ts, dur)]
+    with thread names given as events of dur None."""
+    import gzip
+    import json
+    import os
+
+    d = os.path.join(root, "plugins", "profile", "run")
+    os.makedirs(d)
+    ev = [{"ph": "M", "pid": p, "name": "process_name",
+           "args": {"name": n}} for p, n in processes.items()]
+    for pid, tid, name, ts, dur in events:
+        if dur is None:
+            ev.append({"ph": "M", "pid": pid, "tid": tid,
+                       "name": "thread_name", "args": {"name": name}})
+        else:
+            ev.append({"ph": "X", "pid": pid, "tid": tid, "name": name,
+                       "ts": ts, "dur": dur})
+    with gzip.open(os.path.join(d, "host.trace.json.gz"), "wt") as fh:
+        json.dump({"traceEvents": ev}, fh)
+
+
+def test_profiling_trace_capture(tmp_path):
+    """The trace reduction sums the GPU device's stream events, ignores
+    host threads and module-span threads, and computes busy share as
+    the union of op intervals over the device window."""
+    from svox_t_tpu.utils.profiling import TraceResult
+
+    _write_trace(str(tmp_path), {1: "/host:CPU", 2: "/device:GPU:0"}, [
+        (1, 1, "python", 0, None),
+        (1, 1, "host_work", 0, 500.0),
+        (2, 7, "Stream #7(compute)", 0, None),
+        (2, 9, "XLA Modules", 0, None),
+        (2, 7, "fusion_1", 100.0, 200.0),
+        (2, 7, "fusion_2", 250.0, 100.0),   # overlaps fusion_1
+        (2, 7, "fusion_1", 600.0, 100.0),
+        (2, 9, "jit_render", 100.0, 600.0),
+    ])
+    t = TraceResult(str(tmp_path))
+    assert t.threads == ["Stream #7(compute)"]
+    assert t.counts == {"fusion_1": 2, "fusion_2": 1}
+    assert abs(t.total_ms - 0.4) < 1e-9
+    assert abs(t.busy_ms - 0.35) < 1e-9        # [100,350] + [600,700]
+    assert abs(t.window_ms - 0.6) < 1e-9       # 100 .. 700
+    assert abs(t.busy_share - 0.35 / 0.6) < 1e-9
+    assert t.top(1)[0][0] == "fusion_1"
+
+
+def test_profiling_raises_without_device_plane(tmp_path):
+    """A trace with host events only (work that never reached a GPU)
+    raises instead of reporting zero device time."""
+    from svox_t_tpu.utils.profiling import TraceResult
+
+    _write_trace(str(tmp_path), {1: "/host:CPU"}, [
+        (1, 1, "python", 0, None),
+        (1, 1, "host_work", 0, 500.0),
+    ])
+    with pytest.raises(ValueError, match="no GPU device"):
+        TraceResult(str(tmp_path))
+
+
+def test_device_trace_on_cpu_raises(tmp_path):
+    """A real capture on the CPU backend has no GPU device plane."""
     import jax.numpy as jnp
 
-    from svox_t_tpu.utils.profiling import TraceResult, device_trace
+    from svox_t_tpu.utils.profiling import device_trace
 
-    import tempfile
-
-    with tempfile.TemporaryDirectory() as td:
-        try:
-            with device_trace(td) as t:
-                x = jnp.arange(1024.0)
-                float(jnp.sum(x * x))
-        except FileNotFoundError:
-            return  # no trace emitted on this backend — capture still ran
-        assert t.result is not None
-        assert isinstance(t.total_ms, float)
-        t2 = TraceResult(td)
-        assert t2.total_ms == t.total_ms
+    with pytest.raises(ValueError, match="no GPU device"):
+        with device_trace(str(tmp_path / "tr")):
+            x = jnp.arange(1024.0)
+            float(jnp.sum(x * x))

@@ -91,6 +91,26 @@ def test_construct_tree_points_rows(rng):
     )
 
 
+def test_shared_leaf_takes_highest_point_index(rng):
+    """Several points in one leaf: construct_tree and assign keep the
+    highest-indexed point, as a sequential loop would, whatever order
+    the backend applies duplicate scatter updates in."""
+    t, feats, centers = build_tree(rng)
+    spec = t._spec()
+    # points 0, 2 and 4 share leaf A, point 1 and 3 share leaf B
+    pts = jnp.asarray(centers[[0, 1, 0, 1, 0]])
+    new_data = construct_tree(spec, pts)
+    _, _, data_ids = query(spec.with_(data_flat=new_data), feats,
+                           jnp.asarray(centers[:2]), True)
+    np.testing.assert_array_equal(np.asarray(data_ids), [4, 3])
+
+    vals = jnp.asarray(np.arange(5 * 4, dtype=np.float32).reshape(5, 4))
+    feats2 = np.asarray(assign(spec, feats, pts, vals))
+    np.testing.assert_array_equal(feats2[0], np.asarray(vals[4]))
+    np.testing.assert_array_equal(feats2[1], np.asarray(vals[3]))
+    np.testing.assert_array_equal(feats2[2:], np.asarray(feats[2:]))
+
+
 def test_calc_corners_against_python(rng):
     t, feats, centers = build_tree(rng)
     leaves = t._all_leaves()

@@ -274,8 +274,8 @@ def test_ndc_march_matches_anchored_oracle(rng):
     # (2) render_persp with NDCConfig == oracle on the pre-converted rays.
     # render_persp fuses cam2world_rays+world2ndc into its dispatch; the
     # standalone path rounds differently by ulps, and the NDC divisions
-    # amplify that on a few boundary pixels (docs/PERFORMANCE.md
-    # "Cross-program caveat") — so a small fraction of elements may
+    # amplify that on a few boundary pixels (the cross-program raygen
+    # caveat, CLAUDE.md conventions) — so a small fraction of elements may
     # deviate at the 1e-3 level. Wiring drift (post-NDC vdirs, missing
     # dir normalization, warp-order changes) perturbs EVERY content
     # pixel grossly and fails both gates below.

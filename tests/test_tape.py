@@ -366,7 +366,7 @@ def test_renderer_rig_tape(rng):
                                                   24.0, compact=False))
         np.testing.assert_array_equal(imgs[v], ref_tape)
         # vs the fused-raygen one-dispatch render: the documented
-        # cross-program raygen ulp caveat (docs/PERFORMANCE.md).
+        # cross-program raygen ulp caveat (CLAUDE.md conventions).
         ref = np.asarray(r.render_persp(feats, c2ws[v], W, H, 24.0))
         np.testing.assert_allclose(imgs[v], ref, atol=2e-6)
 

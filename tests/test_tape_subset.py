@@ -138,7 +138,7 @@ def test_subset_grad_matches_masked_full(rng):
 
 def test_subset_grad_matches_march_grad(rng):
     """Subset grads vs the march backward on the identical ray set —
-    the VERDICT's parity bar for minibatch training."""
+    the parity bar for minibatch training."""
     t, feats = _scene(rng)
     rays = make_rays(rng, 200)
     tp, opt, spec = _record(t, feats, rays)
